@@ -1,13 +1,13 @@
-"""pathtracer_tpu — a TPU-native differentiable Monte Carlo path tracer.
+"""pathtracer_tpu — a differentiable Monte Carlo path tracer in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the reference
+A from-scratch JAX/XLA re-design of the capabilities of the reference
 WebGPU/WGSL path tracer (Kauhentus/brown-cs2240-path-tracer):
 
 - ``models``   — host-side scene frontend: INI configs, XML scene graphs,
   OBJ/MTL meshes, materials, SAH BVH build, SoA packing.
   (reference: src/index.ts, src/ts-util/*, src/packer.ts)
 - ``ops``      — device compute: camera ray generation, ray/triangle/AABB/
-  sphere intersection (jnp reference paths + Pallas TPU kernels), BSDFs,
+  sphere intersection (brute sweep, block-shortlist, BVH oracle), BSDFs,
   next-event estimation, the wavefront integrator, tone mapping.
   (reference: src/program-raymarch.wgsl, src/wgsl-util/*.wgsl, src/primitive.wgsl)
 - ``parallel`` — ``jax.sharding`` mesh construction, sharded rendering and
@@ -18,7 +18,7 @@ WebGPU/WGSL path tracer (Kauhentus/brown-cs2240-path-tracer):
 Unlike the reference's megakernel (one thread = one pixel, divergent
 ``while`` loop), the integrator here is a *wavefront*: a flat SoA batch of
 rays advanced through a bounded ``lax.scan`` over bounces with masked lanes,
-which is the idiomatic mapping onto the TPU's 8x128 vector lanes and MXU.
+so every bounce is dense array work that XLA fuses.
 """
 
 __version__ = "0.1.0"

@@ -19,7 +19,9 @@ import time
 
 
 def main(argv=None) -> int:
-    p = argparse.ArgumentParser(description="TPU-native path tracer")
+    from pathtracer_tpu.models.scene import INTERSECTORS
+
+    p = argparse.ArgumentParser(description="JAX path tracer")
     p.add_argument("ini", help="render config (.ini)")
     p.add_argument("--scene-root", default=None, help="root for /scene_assets refs")
     p.add_argument("--out", default=None, help="output PNG (default: INI output)")
@@ -28,13 +30,10 @@ def main(argv=None) -> int:
     p.add_argument(
         "--intersector",
         default="auto",
-        choices=(
-            "auto", "brute", "small_pallas", "shortlist",
-            "shortlist_pallas", "bvh", "pallas", "cluster",
-        ),
-        help="auto = brute sweep for small scenes; above SHORTLIST_MIN_T "
-        "triangles the fused Pallas shortlist kernel (TPU) or the XLA "
-        "block-shortlist (CPU)",
+        choices=INTERSECTORS,
+        help="auto = Triton sweep kernel for small scenes on a GPU, else "
+        "the XLA brute sweep; shortlist = block-shortlist; bvh = "
+        "traversal oracle",
     )
     p.add_argument(
         "--seed", type=int, default=0,
@@ -83,6 +82,10 @@ def main(argv=None) -> int:
         help="glossy lobe: reference Phong, or corrected Beckmann microfacet",
     )
     args = p.parse_args(argv)
+
+    from pathtracer_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     from pathtracer_tpu.models.scene import load_scene
     from pathtracer_tpu.utils.image import write_png

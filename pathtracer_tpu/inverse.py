@@ -12,7 +12,7 @@ directions) receives no gradient — standard for path-replay estimators;
 gradients flow through the BSDF/emission *values* along the fixed paths.
 
 Scaling: the pixel batch shards over the ``rays`` mesh axis, parameters
-replicate, and per-shard gradients are ``psum``-reduced over ICI — the
+replicate, and per-shard gradients are ``psum``-reduced — the
 gradient all-reduce happens inside the same jitted step as the backward
 replay, so XLA overlaps the two.
 """
@@ -144,7 +144,7 @@ def make_train_step(settings, optimizer, mesh=None, loss_space="radiance"):
     tonemap against display-space targets (real PNGs).
 
     With ``mesh``: pixels shard over the ``rays`` axis via ``shard_map``,
-    per-shard loss/grads are ``psum``-averaged (the collective rides ICI),
+    per-shard loss/grads are ``psum``-averaged,
     and the optimizer update runs on replicated params — the full
     data-parallel training step the driver's multichip dryrun exercises.
     """

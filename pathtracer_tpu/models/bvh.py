@@ -1,6 +1,6 @@
 """CPU BVH builder + flattener.
 
-TPU-native replacement for the reference's builder (``src/ts-util/bvh.ts``)
+Replacement for the reference's builder (``src/ts-util/bvh.ts``)
 and packer (``src/packer.ts:83-137``). Deliberate upgrades, per the survey's
 deviation list:
 

@@ -1,6 +1,6 @@
 """INI run-config parser.
 
-TPU-native equivalent of the reference's ``src/ts-util/parse-ini.ts``:
+Equivalent of the reference's ``src/ts-util/parse-ini.ts``:
 a generic ``[Section] key = value`` parser (:9-33) plus a typed conversion
 (:35-55) into the render settings the integrator consumes.
 

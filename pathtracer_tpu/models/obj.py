@@ -1,6 +1,6 @@
 """Wavefront OBJ/MTL parser.
 
-TPU-native equivalent of the reference's ``src/ts-util/parse-obj.ts``.
+Equivalent of the reference's ``src/ts-util/parse-obj.ts``.
 Deliberate fixes over the reference (kept as the *correct general
 implementation* per the survey's deviation list):
 

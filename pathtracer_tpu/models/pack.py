@@ -1,6 +1,6 @@
-"""Scene packing: parsed meshes -> flat, TPU-friendly SoA arrays.
+"""Scene packing: parsed meshes -> flat, device-friendly SoA arrays.
 
-TPU-native replacement for ``src/packer.ts``. Where the reference packs one
+Replacement for ``src/packer.ts``. Where the reference packs one
 untyped ``Float32Array`` with an offset header (16-float header ‖ vertices ‖
 index quads ‖ materials ‖ normals, ``packer.ts:4-81``), this produces typed,
 padded struct-of-arrays that device kernels index directly:
@@ -28,7 +28,7 @@ from pathtracer_tpu.models.bvh import FlatBVH, build_bvh
 from pathtracer_tpu.models.materials import MaterialTable, build_material_table
 from pathtracer_tpu.models.obj import ObjMaterial, ObjMesh
 
-TRI_PAD = 128  # pad triangle count to a multiple of the TPU lane width
+TRI_PAD = 128  # pad triangle count to a multiple of the sweep tile width
 NODE_PAD = 8
 
 

@@ -1,6 +1,6 @@
 """Scene assembly: INI/XML/OBJ on disk -> device-resident ``Scene`` pytree.
 
-TPU-native equivalent of the reference driver pipeline
+Equivalent of the reference driver pipeline
 (``src/index.ts:24-181``): INI -> XML scene graph -> OBJ/MTL meshes -> BVH ->
 packed buffers. Two deliberate upgrades over the reference:
 
@@ -20,16 +20,17 @@ import dataclasses
 import os
 
 import numpy as np
-from flax import struct
 
 from pathtracer_tpu.models.camera import Camera
 from pathtracer_tpu.models.ini import IniScene, load_ini
 from pathtracer_tpu.models.obj import ObjMaterial, load_obj
 from pathtracer_tpu.models.pack import PackedScene, merge_meshes, pack_scene
 from pathtracer_tpu.models.scenegraph import SceneGraph, load_scenegraph
+from pathtracer_tpu.utils.pytree import pytree_node, static_field
 
 
-class Scene(struct.PyTreeNode):
+@pytree_node
+class Scene:
     """Device-side packed scene. Array leaves; static counts as aux data."""
 
     # Triangles (BVH leaf order, padded; see models.pack).
@@ -64,14 +65,18 @@ class Scene(struct.PyTreeNode):
     prim_ctm_inv: object
     prim_mat: object  # [S] i32
     # Static metadata (not traced).
-    num_tris: int = struct.field(pytree_node=False, default=0)
-    num_analytic: int = struct.field(pytree_node=False, default=0)
-    bvh_depth: int = struct.field(pytree_node=False, default=1)
-    max_leaf_size: int = struct.field(pytree_node=False, default=8)
+    num_tris: int = static_field(default=0)
+    num_analytic: int = static_field(default=0)
+    bvh_depth: int = static_field(default=1)
+    max_leaf_size: int = static_field(default=8)
 
     @property
     def padded_tris(self) -> int:
         return int(self.tri_v0.shape[0])
+
+
+# Intersector names ``RenderSettings.intersector`` accepts.
+INTERSECTORS = ("auto", "brute", "sweep", "shortlist", "bvh")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,11 +105,10 @@ class RenderSettings:
     compat_fixed_eta: bool = True
     # shading normal = geometric normal (vertex normals abandoned in reference)
     use_vertex_normals: bool = False
-    # Implementation selection: "auto" (small_pallas fused sweep for tiny
-    # scenes on the TPU inference pool; brute below SHORTLIST_MIN_T tris;
-    # shortlist_pallas above — see ops.intersect.resolve_intersector) |
-    # "small_pallas" | "brute" | "shortlist" | "shortlist_pallas" | "bvh" |
-    # "pallas" | "cluster"
+    # Implementation selection (INTERSECTORS): "auto" (see
+    # ops.intersect.resolve_intersector) | "brute" (XLA sweep) | "sweep"
+    # (Triton kernel, scenes of <= TMAJOR_MAX_T tris) | "shortlist" |
+    # "bvh" (the traversal oracle).
     intersector: str = "auto"
     # NEE shadow rays: "fast" (t-only occlusion sweep; light attributes from
     # the sample itself) | "closest" (full closest-hit, the reference's
@@ -138,6 +142,13 @@ class RenderSettings:
     spawn_chunk: int = 0
     # Rays per device batch (pixels*samples are chunked to this).
     batch_size: int = 1 << 18
+
+    def __post_init__(self):
+        if self.intersector not in INTERSECTORS:
+            raise ValueError(
+                f"unknown intersector {self.intersector!r}; "
+                f"available: {', '.join(INTERSECTORS)}"
+            )
 
     @classmethod
     def from_ini(cls, ini: IniScene, **overrides) -> "RenderSettings":

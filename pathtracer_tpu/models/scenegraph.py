@@ -1,6 +1,6 @@
 """XML scene-graph frontend.
 
-TPU-native equivalent of the reference driver's scene walk
+Equivalent of the reference driver's scene walk
 (``src/index.ts:29-113``): parse a ``<scenefile>`` document, accumulate
 cumulative transform matrices (CTMs) through ``<transblock>`` nodes, and
 collect primitive leaves.

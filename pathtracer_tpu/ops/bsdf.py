@@ -1,10 +1,10 @@
 """BSDF evaluation and sampling (masked, branch-free).
 
-TPU-native re-design of the reference's per-thread BSDF branches
+Re-design of the reference's per-thread BSDF branches
 (``src/program-raymarch.wgsl:199-295``) and samplers
 (``src/wgsl-util/samplers.wgsl``). Every lobe is evaluated for every lane and
 combined with ``jnp.where`` masks — the idiomatic mapping of the reference's
-divergent ``if illum==7 / Ns>500 / Ks>0`` chain onto TPU vector lanes.
+divergent ``if illum==7 / Ns>500 / Ks>0`` chain onto dense arrays.
 
 Lobe semantics (matching the reference exactly in compat mode):
 - dielectric (illum == 7): Schlick-Fresnel reflect-or-refract, eta from Ni

@@ -1,6 +1,6 @@
 """BVH-guided closest-hit traversal (vectorized masked stacks).
 
-TPU-native re-design of the reference's per-thread stack walk
+Re-design of the reference's per-thread stack walk
 (``src/wgsl-util/intersection-logic.wgsl:1-215``). The reference keeps a
 64-slot stack per GPU thread with divergent control flow; here every lane of
 a flat [B] ray batch carries its own small stack *as data* ([B, S] arrays,

@@ -1,6 +1,6 @@
 """Primary-ray generation (device side).
 
-TPU-native equivalent of the reference's per-pixel camera setup
+Equivalent of the reference's per-pixel camera setup
 (``src/program-raymarch.wgsl:50-74``): sub-pixel jittered pinhole rays with
 vertical FOV and focal length 1. Operates on flat ray batches (a chunk of
 pixel ids x one sample index each), producing SoA origin/direction arrays.

@@ -1,11 +1,11 @@
 """Wavefront path-tracing integrator.
 
-TPU-native re-design of the reference megakernel ``radiance``
+Re-design of the reference megakernel ``radiance``
 (``src/program-raymarch.wgsl:104-303``). The reference runs one divergent
 ``while(depth <= 16)`` loop per pixel-thread; here a flat SoA batch of rays
 advances through a bounded ``lax.scan`` over bounces with *masked lanes*:
 dead rays keep their state and contribute nothing, every lane executes every
-lobe, and ``jnp.where`` selects — zero divergence on the 8x128 VPU.
+lobe, and ``jnp.where`` selects — no divergence anywhere.
 
 Per bounce (mirroring the reference's order of operations exactly):
   1. closest-hit intersect            (intersection-logic.wgsl:1-215)
@@ -70,8 +70,7 @@ def _nee(scene, settings, hit, mat, d, beta, u, active):
 
     - ``fast`` (default): the light sample carries its own point/normal/Ke
       (ops.lights.sample_area_lights_detailed), so visibility is a t-only
-      occlusion sweep — no argmin, no winner-attribute extraction. ~2x
-      cheaper shadow rays on TPU.
+      occlusion sweep — no argmin, no winner-attribute extraction.
     - ``closest``: full closest-hit on the shadow ray and the *hit*'s
       attributes drive the contribution — the reference's exact semantics
       (program-raymarch.wgsl:146-187), where a shadow ray reaching a

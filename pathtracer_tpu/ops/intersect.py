@@ -1,6 +1,6 @@
 """Closest-hit intersection (jnp reference paths).
 
-TPU-native re-design of the reference's device intersection tier:
+Re-design of the reference's device intersection tier:
 
 - ``src/wgsl-util/ray-triangle-intersection.wgsl`` (Moller-Trumbore, eps 1e-8)
 - ``src/wgsl-util/intersection-logic.wgsl`` (per-thread stack BVH walk)
@@ -10,25 +10,26 @@ TPU-native re-design of the reference's device intersection tier:
 Instead of a divergent per-ray traversal, the baseline intersector here is a
 **vectorized masked sweep**: every ray tests every (padded) triangle, tiled
 through a ``lax.scan`` carrying a running (t, id) minimum so the [B, T]
-intermediate never materializes beyond one tile. All tests map onto the VPU's
-8x128 lanes with zero divergence; for the shipped scenes (36-12.5k triangles)
-the whole triangle SoA is VMEM-resident. A Pallas kernel with the same
-contract lives in ``ops.intersect_pallas``; BVH-guided variants in
-``ops.bvh_traverse``. All share this module's ``Hit`` record so they are
-interchangeable test oracles for one another.
+intermediate never materializes beyond one tile. On a GPU, small scenes
+sweep in one Triton kernel (``ops.sweep_triton``); the block-shortlist
+(``ops.intersect_shortlist``) and the masked-stack BVH walk
+(``ops.bvh_traverse``) are alternatives and oracles. All share this module's ``Hit``
+record so they are interchangeable test oracles for one another.
 """
 
 from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+
+from pathtracer_tpu.utils.pytree import pytree_node
 
 EPS_TRI = 1e-8  # ray-triangle-intersection.wgsl:5
 INF = jnp.inf
 
 
-class Hit(struct.PyTreeNode):
+@pytree_node
+class Hit:
     """SoA hit record for a ray batch (cf. ``Intersection``, data-structs.wgsl:32)."""
 
     hit: jax.Array  # [B] bool
@@ -47,10 +48,10 @@ def _moller_trumbore(o, d, v0, e1, e2, valid):
     (ray-triangle-intersection.wgsl:1-42), vectorized over the full
     ray-x-triangle tile with masks in place of branches.
 
-    Layout note: every intermediate is a *componentwise* [B, T] array — a
-    naive [B, T, 3] cross-product layout puts the xyz axis on the TPU's
-    128-wide lane dimension (3/128 utilization); component SoA keeps the
-    triangle axis minor so the VPU runs full tiles (~25x faster here).
+    Layout note: every intermediate is a *componentwise* [B, T] array, so
+    the whole test is one dense elementwise pass that XLA fuses with the
+    reduction; a [B, T, 3] cross-product layout would make a size-3 axis
+    minor and waste most of every vector.
     """
     ox, oy, oz = o[:, 0:1], o[:, 1:2], o[:, 2:3]  # [B, 1]
     dx, dy, dz = d[:, 0:1], d[:, 1:2], d[:, 2:3]
@@ -86,9 +87,9 @@ def _moller_trumbore(o, d, v0, e1, e2, valid):
 
 
 # Scenes whose 8-rounded triangle count is at or below this sweep in the
-# transposed [T, B] layout: triangles on the 8-wide sublane axis (padding
-# waste T8/T vs the [B, T] layout's 128-lane rounding — 40 vs 128 rows for
-# the 36-tri CornellBox, measured 1.8x less sweep compute).
+# transposed [T, B] layout: rays on the minor axis, triangles padded only to
+# a multiple of 8 (40 rows for the 36-tri CornellBox, against the 128 rows
+# of the [B, T] layout's padding).
 TMAJOR_MAX_T = 256
 
 
@@ -107,8 +108,8 @@ def _tri_comps_tmajor(scene):
 def _moller_trumbore_tmajor(scene, o, d):
     """Transposed MT sweep -> (t [T8, B], ok [T8, B]).
 
-    Same math/epsilon as ``_moller_trumbore`` but rays ride the 128-wide
-    lane axis and triangles the 8-wide sublane axis.
+    Same math/epsilon as ``_moller_trumbore`` but rays ride the minor axis
+    and triangles the (8-padded) major one.
     """
     (v0x, v0y, v0z), (e1x, e1y, e1z), (e2x, e2y, e2z), valid = (
         _tri_comps_tmajor(scene)
@@ -153,12 +154,11 @@ def _closest_tri_tmajor(scene, o, d):
 def _pick_tile(tp: int, want: int = 512) -> int:
     """Sweep tile size for a padded triangle count (multiple of 128).
 
-    Never returns 128: a [B, 128] tile is pathologically slow on TPU
-    (measured 115x worse than 256+ — the per-tile broadcast/reduce overhead
-    swamps one lane-row of tests). Small scenes sweep in a single tile;
-    otherwise the largest divisor of ``tp`` in [256, 2048] (preferring close
-    to ``want``), falling back to one full-width tile when ``tp`` has no
-    such divisor (tp = 128 * prime).
+    Avoids 128: with one narrow tile per scan step, the per-step
+    broadcast/reduce overhead swamps the tests. Small scenes sweep in a
+    single tile; otherwise the largest divisor of ``tp`` in [256, 2048]
+    (preferring close to ``want``), falling back to 128-wide tiles when
+    ``tp`` has no such divisor (tp = 128 * prime).
     """
     if tp <= 2048:
         return tp
@@ -213,54 +213,98 @@ def closest_tri_brute(scene, o, d, tile: int = 512):
     return best_t, best_id
 
 
-# In-kernel winner-attribute extraction for the SHORTLIST kernel
-# (intersect_shortlist_pallas rows 2-5): exact, but the per-sweep masked
-# channel selects scale with clusters visited and measured net-slower in
-# situ than the two-stage one-hot extraction on both refraction (17.4 vs
-# 17.9 Mray/s) and the boat (7.5 vs 7.8) once pool ray-sorting landed —
-# OFF by default, env-overridable for experiments (PT_KERNEL_ATTRS=1).
-# The SMALL-scene kernel (intersect_small_pallas) extracts attrs in its
-# single sweep unconditionally — there it is free.
-import os as _os
-
-USE_KERNEL_ATTRS = _os.environ.get("PT_KERNEL_ATTRS", "0") == "1"
-
 # `auto` switches from the brute sweep to the block-shortlist intersector at
-# this padded triangle count. Re-measured round 5 on TPU v5e END-TO-END with
-# the sorted pool + fetch=2 Pallas kernel: refraction (2560 padded tris)
-# renders 4.7 s shortlist_pallas vs 5.8 s brute, while glossy (1152) stays
-# faster on brute (3.2 s vs 3.6 s) — the crossover sits between; 2048
-# routes refraction to the kernel and keeps glossy on the sweep
-# (docs/PERF_NOTES.md round-5 crossover table).
-SHORTLIST_MIN_T = 2048
+# this padded triangle count. Measured end to end on one H100 (700 W),
+# 512x512, 4 spp, seeded mesh scenes: brute 0.120 / 0.183 / 0.801 s against
+# shortlist 0.343 / 0.500 / 43.3 s at 1152 / 2560 / 12800 padded triangles.
+# Brute wins at every measured size, so there is no crossover to route by:
+# auto keeps brute until a faster large-mesh path exists (ROADMAP R3).
+SHORTLIST_MIN_T = 1 << 31
+
+
+# Profiler scopes of the triangle sweeps (utils.profiling attributes device
+# time to them): the closest-hit sweep (not its attribute extraction) and
+# the shadow-ray occlusion sweep.
+CLOSEST_SCOPE = "closest_hit_sweep"
+SHADOW_SCOPE = "shadow_sweep"
 
 
 def resolve_intersector(settings, scene) -> str:
     """Concrete intersector for ``settings.intersector`` (resolving "auto").
 
-    auto routing (measured on TPU v5e, docs/PERF_NOTES.md rounds 4-5):
-
-    - <= TMAJOR_MAX_T tris on TPU under the inference pool: the fused
-      "small_pallas" sweep+extract kernel (ops.intersect_small_pallas);
-      under the differentiable scan scheduler or with vertex normals:
-      the XLA [T, B] transposed "brute" sweep (pallas_call has no VJP);
-    - >= SHORTLIST_MIN_T: the fused Pallas shortlist kernel on TPU, the
-      XLA "shortlist" elsewhere (pallas_call only interprets on CPU);
-    - in between: "brute" tiled sweep.
+    ``auto`` routes by what it observes, the backend and the padded
+    triangle count: the XLA block-shortlist at or above SHORTLIST_MIN_T;
+    on a GPU, scenes of at most TMAJOR_MAX_T triangles to the Triton
+    ``sweep`` kernel; everything else to the XLA ``brute`` sweep (the
+    [T, B] transposed sweep up to TMAJOR_MAX_T, tiled [B, T] above).
     """
-    if settings.intersector == "auto":
-        import jax
+    if settings.intersector != "auto":
+        return settings.intersector
+    if scene.padded_tris >= SHORTLIST_MIN_T:
+        return "shortlist"
+    # The Triton kernel (ops.sweep_triton) takes the CornellBox final frame
+    # from 0.0943 to 0.0793 s end to end on one H100 (700 W); it needs a GPU.
+    small = (scene.num_tris + 7) // 8 * 8 <= TMAJOR_MAX_T
+    if small and jax.default_backend() == "gpu":
+        return "sweep"
+    return "brute"
 
-        on_tpu = jax.default_backend() not in ("cpu",)
-        if scene.padded_tris >= SHORTLIST_MIN_T:
-            return "shortlist_pallas" if on_tpu else "shortlist"
-        # "small_pallas" (the fused sweep+extract kernel) measured 126-130
-        # Mray/s on the headline vs the XLA tmajor path's 138-142: XLA's
-        # fusion of the sweep into the surrounding elementwise work beats
-        # the kernel's un-fusable input packing at this triangle count.
-        # It remains available as an explicit intersector choice.
-        return "brute"
-    return settings.intersector
+
+def _closest_tri(method: str, scene, o, d):
+    """Triangle closest hit by the named method -> (t [B], tri_id [B])."""
+    if method == "brute":
+        return closest_tri_brute(scene, o, d)
+    if method == "shortlist":
+        from pathtracer_tpu.ops.intersect_shortlist import closest_tri_shortlist
+
+        return closest_tri_shortlist(scene, o, d)
+    if method == "bvh":
+        from pathtracer_tpu.ops.bvh_traverse import closest_tri_bvh
+
+        return closest_tri_bvh(scene, o, d)
+    if method == "sweep":
+        import functools
+
+        from pathtracer_tpu.ops.sweep_triton import closest_tri_sweep
+
+        # The kernel lowers for CUDA; on any other platform the same kernel
+        # runs in interpret mode. Chosen when lowering, so a computation
+        # placed on the CPU in a GPU process works too.
+        return jax.lax.platform_dependent(
+            scene, o, d,
+            cuda=closest_tri_sweep,
+            default=functools.partial(closest_tri_sweep, interpret=True),
+        )
+    raise ValueError(f"unknown intersector {method!r}")
+
+
+def _occluded_brute(scene, o, d, t_cut):
+    """Brute occlusion sweep -> (occluded [B], hit_any [B])."""
+    zero = (o[:, 0] + d[:, 0]) * 0.0
+    if scene.num_tris == 0:
+        return zero != 0.0, zero != 0.0
+    if (scene.num_tris + 7) // 8 * 8 <= TMAJOR_MAX_T:
+        t, ok = _moller_trumbore_tmajor(scene, o, d)
+        return jnp.any(ok & (t < t_cut[None, :]), axis=0), jnp.any(ok, axis=0)
+    tp = scene.padded_tris
+    tile = _pick_tile(tp)
+    n_tiles = tp // tile
+    v0 = scene.tri_v0.reshape(n_tiles, tile, 3)
+    e1 = scene.tri_e1.reshape(n_tiles, tile, 3)
+    e2 = scene.tri_e2.reshape(n_tiles, tile, 3)
+    valid = scene.tri_valid.reshape(n_tiles, tile)
+
+    def body(carry, tile_data):
+        occ, any_hit = carry
+        tv0, te1, te2, tvalid = tile_data
+        t, ok = _moller_trumbore(o, d, tv0, te1, te2, tvalid)
+        occ = occ | jnp.any(ok & (t < t_cut[:, None]), axis=1)
+        any_hit = any_hit | jnp.any(ok, axis=1)
+        return (occ, any_hit), None
+
+    init = (zero != 0.0, zero != 0.0)
+    (occ, any_hit), _ = jax.lax.scan(body, init, (v0, e1, e2, valid))
+    return occ, any_hit
 
 
 def occluded_before(scene, o, d, t_max, settings, rel_eps: float = 1e-3):
@@ -277,104 +321,37 @@ def occluded_before(scene, o, d, t_max, settings, rel_eps: float = 1e-3):
     """
     t_cut = t_max * (1.0 - rel_eps)
     method = resolve_intersector(settings, scene)
-    if method == "small_pallas" and settings.direct_lighting_only:
-        # DLO consumes hit_any ("the shadow ray hit anything"), which the
-        # cutoff-bounded kernel doesn't compute; the scenes on this route
-        # are tiny, so the transposed brute sweep serves DLO exactly.
-        method = "brute"
-
-    if method == "small_pallas":
-        from pathtracer_tpu.ops.intersect_small_pallas import (
-            occluded_tri_small_pallas,
-        )
-
-        occ = occluded_tri_small_pallas(scene, o, d, t_cut)
-        any_hit = occ  # consumed only on the DLO path, excluded above
-    elif method == "brute" and (scene.num_tris + 7) // 8 * 8 <= TMAJOR_MAX_T:
-        if scene.num_tris == 0:
-            zero = (o[:, 0] + d[:, 0]) * 0.0
-            occ = any_hit = zero != 0.0
-        else:
-            t, ok = _moller_trumbore_tmajor(scene, o, d)
-            occ = jnp.any(ok & (t < t_cut[None, :]), axis=0)
-            any_hit = jnp.any(ok, axis=0)
-    elif method == "brute":
-        tp = scene.padded_tris
-        tile = _pick_tile(tp)
-        n_tiles = tp // tile
-        v0 = scene.tri_v0.reshape(n_tiles, tile, 3)
-        e1 = scene.tri_e1.reshape(n_tiles, tile, 3)
-        e2 = scene.tri_e2.reshape(n_tiles, tile, 3)
-        valid = scene.tri_valid.reshape(n_tiles, tile)
-
-        def body(carry, tile_data):
-            occ, any_hit = carry
-            tv0, te1, te2, tvalid = tile_data
-            t, ok = _moller_trumbore(o, d, tv0, te1, te2, tvalid)
-            occ = occ | jnp.any(ok & (t < t_cut[:, None]), axis=1)
-            any_hit = any_hit | jnp.any(ok, axis=1)
-            return (occ, any_hit), None
-
-        zero = (o[:, 0] + d[:, 0]) * 0.0
-        init = (zero != 0.0, zero != 0.0)
-        (occ, any_hit), _ = jax.lax.scan(body, init, (v0, e1, e2, valid))
-    elif (
-        method in ("shortlist", "shortlist_pallas")
-        and not settings.direct_lighting_only
-    ):
-        # Occlusion-only shortlist: best_t starts at the cutoff, so clusters
-        # beyond the light sample are never swept. ``hit_any`` is consumed
-        # only on the directLightingOnly path (handled below), so here it
-        # aliases ``occ`` rather than paying for an unbounded sweep.
-        if method == "shortlist_pallas":
-            from pathtracer_tpu.ops.intersect_shortlist_pallas import (
-                occluded_tri_shortlist_pallas,
-            )
-
-            occ = occluded_tri_shortlist_pallas(scene, o, d, t_cut)
-        else:
+    with jax.named_scope(SHADOW_SCOPE):
+        if method == "brute":
+            occ, any_hit = _occluded_brute(scene, o, d, t_cut)
+        elif method == "shortlist" and not settings.direct_lighting_only:
+            # Occlusion-only shortlist: best_t starts at the cutoff, so
+            # clusters beyond the light sample are never swept. ``hit_any``
+            # is consumed only on the directLightingOnly path (the
+            # closest-hit branch below), so here it aliases ``occ`` rather
+            # than paying for an unbounded sweep.
             from pathtracer_tpu.ops.intersect_shortlist import (
                 occluded_tri_shortlist,
             )
 
-            occ = occluded_tri_shortlist(scene, o, d, t_cut)
-        any_hit = occ
-    else:
-        # BVH / Pallas / cluster / shortlist(+DLO) configs reuse their
-        # closest-hit core (still skips the attribute-extraction stage,
-        # which is the expensive half).
-        if method == "pallas":
-            from pathtracer_tpu.ops.intersect_pallas import closest_tri_pallas
-
-            t_tri, _ = closest_tri_pallas(scene, o, d)
-        elif method == "cluster":
-            from pathtracer_tpu.ops.intersect_cluster import closest_tri_cluster
-
-            t_tri, _ = closest_tri_cluster(scene, o, d)
-        elif method == "shortlist":
-            from pathtracer_tpu.ops.intersect_shortlist import (
-                closest_tri_shortlist,
-            )
-
-            t_tri, _ = closest_tri_shortlist(scene, o, d)
-        elif method == "shortlist_pallas":
-            from pathtracer_tpu.ops.intersect_shortlist_pallas import (
-                closest_tri_shortlist_pallas,
-            )
-
-            t_tri, _ = closest_tri_shortlist_pallas(scene, o, d)
+            occ = any_hit = occluded_tri_shortlist(scene, o, d, t_cut)
         else:
-            from pathtracer_tpu.ops.bvh_traverse import closest_tri_bvh
-
-            t_tri, _ = closest_tri_bvh(scene, o, d)
-        occ = t_tri < t_cut
-        any_hit = jnp.isfinite(t_tri)
+            # The sweep kernel, BVH and shortlist+DLO reuse their
+            # closest-hit core (still skipping the attribute extraction).
+            t_tri, _ = _closest_tri(method, scene, o, d)
+            occ = t_tri < t_cut
+            any_hit = jnp.isfinite(t_tri)
 
     if scene.num_analytic > 0:
         t_a, _, _, _ = intersect_analytic(scene, o, d)
         occ = occ | (t_a < t_cut)
         any_hit = any_hit | jnp.isfinite(t_a)
     return occ, any_hit
+
+
+# Full-f32 products wherever exactness is claimed (one-hot selection,
+# analytic transforms): the default may run in TF32 on tensor cores.
+_MATMUL_EXACT = jax.lax.Precision.HIGHEST
 
 
 def intersect_analytic(scene, o, d):
@@ -396,8 +373,11 @@ def intersect_analytic(scene, o, d):
     def one_prim(best, idx):
         best_t, best_p, best_n, best_m = best
         inv = scene.prim_ctm_inv[idx]
-        oo = o @ inv[:3, :3].T + inv[:3, 3]
-        od = d @ inv[:3, :3].T  # unnormalized: object t == world t
+        # HIGHEST: a default-precision f32 product may run in reduced
+        # precision (TF32) on tensor-core hardware.
+        oo = jnp.matmul(o, inv[:3, :3].T, precision=_MATMUL_EXACT) + inv[:3, 3]
+        # Unnormalized: object t == world t.
+        od = jnp.matmul(d, inv[:3, :3].T, precision=_MATMUL_EXACT)
 
         # Unit sphere (radius 0.5).
         a = jnp.sum(od * od, axis=-1)
@@ -434,7 +414,8 @@ def intersect_analytic(scene, o, d):
         # Back to world space (miss lanes: finite placeholder, see above).
         t_w = jnp.where(jnp.isfinite(t_obj), t_obj, 0.0)
         p_w = o + t_w[:, None] * d
-        n_w = n_obj @ inv[:3, :3]  # (ctm^-1)^T applied -> row-vector form
+        # (ctm^-1)^T applied -> row-vector form.
+        n_w = jnp.matmul(n_obj, inv[:3, :3], precision=_MATMUL_EXACT)
         n_w = n_w / jnp.maximum(jnp.linalg.norm(n_w, axis=-1, keepdims=True), 1e-20)
 
         better = t_obj < best_t
@@ -451,15 +432,14 @@ def intersect_analytic(scene, o, d):
     return best
 
 
-# Above this triangle count, per-winner one-hot matmul extraction (MXU) is
-# replaced by plain gathers: the [B, T] one-hot would cost O(B*T*C) flops.
+# Above this triangle count, per-winner one-hot matmul extraction is
+# replaced by the two-stage extraction: the [B, T] one-hot would cost
+# O(B*T*C) flops.
 ONEHOT_MAX_T = 2048
-
-_MATMUL_EXACT = jax.lax.Precision.HIGHEST  # exact f32 one-hot selection
 
 
 def _onehot_dot(onehot_f32, table):
-    """[B, K] one-hot x [K, C] table -> [B, C], exact in f32 (MXU)."""
+    """[B, K] one-hot x [K, C] table -> [B, C], exact in f32."""
     return jax.lax.dot_general(
         onehot_f32, table, (((1,), (0,)), ((), ())), precision=_MATMUL_EXACT
     )
@@ -524,11 +504,8 @@ def _unpack_mat(a, off: int = 0):
 
 
 def material_lookup(scene, mat_id):
-    """Material record dict for [B] ids via one-hot matmul (no gathers).
-
-    TPU gathers lower to serialized dynamic slices; a one-hot [B, M] @
-    [M, 12] matmul rides the MXU instead (M = #materials, always small).
-    """
+    """Material record dict for [B] ids via an exact one-hot [B, M] @
+    [M, 12] matmul (M = #materials, always small)."""
     m = scene.mat_Ns.shape[0]
     oh = (mat_id[:, None] == jnp.arange(m, dtype=mat_id.dtype)).astype(
         jnp.float32
@@ -538,14 +515,15 @@ def material_lookup(scene, mat_id):
 
 def _vn_shading_normal(o, d, v0, e1, e2, vn, n_geo):
     """Barycentric-interpolated shading normal from extracted per-winner
-    triangle data (no per-winner gathers — TPU gathers serialize)."""
+    triangle data. Dots are elementwise multiply-and-sum, so no reduced-
+    precision matmul path can touch them."""
     pvec = jnp.cross(d, e2)
-    det = jnp.einsum("bk,bk->b", e1, pvec)
+    det = jnp.sum(e1 * pvec, axis=-1)
     inv_det = 1.0 / jnp.where(jnp.abs(det) > EPS_TRI, det, 1.0)
     s = o - v0
-    u = jnp.einsum("bk,bk->b", s, pvec) * inv_det
+    u = jnp.sum(s * pvec, axis=-1) * inv_det
     qvec = jnp.cross(s, e1)
-    v = jnp.einsum("bk,bk->b", d, qvec) * inv_det
+    v = jnp.sum(d * qvec, axis=-1) * inv_det
     n = (
         (1.0 - u - v)[:, None] * vn[:, 0:3]
         + u[:, None] * vn[:, 3:6]
@@ -556,7 +534,7 @@ def _vn_shading_normal(o, d, v0, e1, e2, vn, n_geo):
     return jnp.where(norm > 1e-12, n, n_geo)
 
 
-# Within-cluster width of the two-stage winner extraction (= lane width).
+# Within-cluster width of the two-stage winner extraction.
 EXTRACT_SUB = 128
 
 
@@ -565,14 +543,13 @@ def _two_stage_extract(scene, tri_id, want_vn: bool):
     [B, T] one-hot -> [B, ch] (ch = 4, or 22 with vertex normals).
 
     Channels: n(0:3) mat_id(3); with ``want_vn``: v0(4:7) e1(7:10) e2(10:13)
-    vn(13:22). Replaces the serialized per-winner gathers (measured ~4.7 ms
-    per 262k wave at T=2.3k — the round-2 "extraction cliff") with two
-    chained exact selections:
+    vn(13:22). Two chained exact selections stand in for per-winner
+    gathers:
 
-      1. cluster one-hot  [B, C] @ [C, ch*SUB]  (MXU, HIGHEST — exact row
-         copy; C = T/SUB so the operand never approaches the [B, T] blowup)
-      2. within-cluster one-hot multiply+reduce over the SUB axis (VPU,
-         fused: ``sum(stage1[B, ch, SUB] * onehot[B, 1, SUB], axis=2)``).
+      1. cluster one-hot  [B, C] @ [C, ch*SUB]  (HIGHEST — exact row copy;
+         C = T/SUB so the operand never approaches the [B, T] blowup)
+      2. within-cluster one-hot multiply+reduce over the SUB axis (fused:
+         ``sum(stage1[B, ch, SUB] * onehot[B, 1, SUB], axis=2)``).
 
     Miss lanes (tri_id = -1) select no cluster row and return zeros; the
     caller sanitizes them. Material channels beyond mat_id come from
@@ -591,7 +568,7 @@ def _two_stage_extract(scene, tri_id, want_vn: bool):
         ]
     table = jnp.concatenate(cols, axis=1)  # [tp, ch]
     ch = table.shape[1]
-    # Component-major cluster rows: ch blocks of SUB lane-aligned columns.
+    # Component-major cluster rows: ch blocks of SUB contiguous columns.
     tbl = table.reshape(c, sub, ch).transpose(0, 2, 1).reshape(c, ch * sub)
 
     hi = tri_id // sub  # -1 -> -1: selects no row, stage1 = 0
@@ -610,59 +587,15 @@ def closest_hit(scene, o, d, settings):
     """Fused scene closest-hit -> (Hit, material dict).
 
     One call produces both the geometric hit record and the winning lane's
-    full material — the hot-path replacement for intersect-then-gather
-    (gathers dominate on TPU: winner attributes instead come from an exact
-    one-hot [B, T] @ [T, C] matmul on the MXU for small scenes, or a
-    [B, M] material-table matmul otherwise). Miss lanes are sanitized
+    full material: winner attributes come from an exact one-hot
+    [B, T] @ [T, C] matmul for small scenes, or the two-stage extraction
+    plus a [B, M] material-table matmul otherwise. Miss lanes are sanitized
     (unit-z normal, Ni = 1) so downstream masked BSDF math stays NaN-free
     under reverse-mode AD.
     """
     method = resolve_intersector(settings, scene)
-    kernel_attrs = None  # (n_geo, mat_id) when the kernel extracts them
-    if method == "small_pallas":
-        from pathtracer_tpu.ops.intersect_small_pallas import (
-            closest_tri_small_pallas_attrs,
-        )
-
-        t_tri, tri_id, k_n, k_mat = closest_tri_small_pallas_attrs(scene, o, d)
-        kernel_attrs = (k_n, k_mat)
-    elif method == "brute":
-        t_tri, tri_id = closest_tri_brute(scene, o, d)
-    elif method == "shortlist":
-        from pathtracer_tpu.ops.intersect_shortlist import (
-            closest_tri_shortlist,
-        )
-
-        t_tri, tri_id = closest_tri_shortlist(scene, o, d)
-    elif method == "shortlist_pallas":
-        from pathtracer_tpu.ops.intersect_shortlist_pallas import (
-            closest_tri_shortlist_pallas,
-            closest_tri_shortlist_pallas_attrs,
-        )
-
-        if settings.use_vertex_normals or not USE_KERNEL_ATTRS:
-            # The vn channels (18 extra) don't fit the kernel's attribute
-            # rows; fall back to the two-stage extraction below.
-            t_tri, tri_id = closest_tri_shortlist_pallas(scene, o, d)
-        else:
-            t_tri, tri_id, k_n, k_mat = closest_tri_shortlist_pallas_attrs(
-                scene, o, d
-            )
-            kernel_attrs = (k_n, k_mat)
-    elif method == "pallas":
-        from pathtracer_tpu.ops.intersect_pallas import closest_tri_pallas
-
-        t_tri, tri_id = closest_tri_pallas(scene, o, d)
-    elif method == "bvh":
-        from pathtracer_tpu.ops.bvh_traverse import closest_tri_bvh
-
-        t_tri, tri_id = closest_tri_bvh(scene, o, d)
-    elif method == "cluster":
-        from pathtracer_tpu.ops.intersect_cluster import closest_tri_cluster
-
-        t_tri, tri_id = closest_tri_cluster(scene, o, d)
-    else:
-        raise ValueError(f"unknown intersector {method!r}")
+    with jax.named_scope(CLOSEST_SCOPE):
+        t_tri, tri_id = _closest_tri(method, scene, o, d)
 
     t_pad = scene.padded_tris
     # Miss lanes keep t = inf but must not produce inf/NaN coordinates:
@@ -671,17 +604,12 @@ def closest_hit(scene, o, d, settings):
     point = o + t_pt[:, None] * d
 
     t8 = (scene.num_tris + 7) // 8 * 8
-    if kernel_attrs is not None:
-        n_geo, mat_id = kernel_attrs
-        mat = material_lookup(scene, mat_id)
-        n_shade = n_geo
-        a = None
-    elif method == "brute" and t8 <= TMAJOR_MAX_T:
+    if method in ("brute", "sweep") and t8 <= TMAJOR_MAX_T:
         # Transposed extraction to match the [T, B] sweep layout: the
         # winner one-hot is [T8, B] (T8 << the 128-padded t_pad — for the
         # 36-tri Cornell this is 40 vs 128 rows of [B] traffic, and the
-        # one-hot is the extraction's dominant cost), contracted on the
-        # MXU as [ch, T8] @ [T8, B] and transposed back ([ch, B] is small).
+        # one-hot is the extraction's dominant cost), contracted as
+        # [ch, T8] @ [T8, B] and transposed back ([ch, B] is small).
         table = _tri_attr_table(scene, settings.use_vertex_normals, rows=t8)
         oh_t = (
             jnp.arange(t8, dtype=tri_id.dtype)[:, None] == tri_id[None, :]
@@ -696,9 +624,7 @@ def closest_hit(scene, o, d, settings):
     else:
         a = None  # two-stage extraction below
 
-    if kernel_attrs is not None:
-        pass  # n_geo/mat/mat_id/n_shade already set from the kernel rows
-    elif a is not None:
+    if a is not None:
         n_geo = a[:, 0:3]
         mat = _unpack_mat(a, off=3)
         mat_id = a[:, 15].astype(jnp.int32)

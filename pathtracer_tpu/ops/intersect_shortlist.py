@@ -2,18 +2,12 @@
 
 The capability matched is the reference's BVH traversal
 (``src/wgsl-util/intersection-logic.wgsl:1-215``); the mechanics are
-redesigned for the TPU's vector units, guided by the round-1 measurements
-(docs/PERF_NOTES.md):
+redesigned as dense array work:
 
-- per-*ray* triangle selection is hopeless on TPU (one gathered row costs
-  ~800 Möller–Trumbore tests of VPU time), but per-*block* selection
-  amortized over a block of rays pays off;
-- gathers serialize, one-hot matmuls ride the MXU — so the "gather" of a
-  shortlisted cluster's triangles is an exact one-hot [NB·K, C] @
-  [C, 11·CLUSTER] matmul at HIGHEST precision;
-- whole-tile skipping inside a Pallas kernel lost 2.7x to vector->scalar
-  sync; here every round is branch-free over the full batch and the only
-  scalar decision is the while_loop's global "anyone still improvable?".
+- triangles are selected per *block* of rays, not per ray, so the cost of
+  a selection is amortized over the block;
+- every round is branch-free over the full batch and the only scalar
+  decision is the while_loop's global "anyone still improvable?".
 
 Algorithm (exact — agrees with the brute sweep bit-for-bit on t):
   1. Triangles are packed in BVH-leaf order (models.pack), so consecutive
@@ -50,10 +44,9 @@ _INF = jnp.inf
 _BIG_F = 3.0e38
 _BIG_ID = 1.0e9  # > any triangle id; ids are exact in f32 (< 2^24)
 
-# Defaults tuned on TPU v5e over 262k-ray camera/bounce waves (boat 12.7k
-# tris and CornellBox-Sphere 2.3k tris; see docs/PERF_NOTES.md). Small
-# clusters cull much tighter than lane-width ones; the sweep repacks K
-# gathered clusters into 128-wide tiles so lane utilization stays full.
+# Defaults for 262k-ray camera/bounce waves over 2k-13k triangle meshes.
+# Small clusters cull much tighter than large ones; the sweep repacks K
+# gathered clusters into 128-wide tiles so each tile stays dense.
 BLOCK = 256  # rays per shortlist decision
 CLUSTER = 32  # triangles per cluster (gather/cull granularity)
 K = 16  # clusters gathered per block per round (K*CLUSTER % 128 == 0)
@@ -65,8 +58,8 @@ _COMPS = 11  # v0.xyz e1.xyz e2.xyz id valid
 def _cluster_table(scene, cluster: int):
     """(table [C, 11*cluster], lo [C,3], hi [C,3]) from the triangle SoA.
 
-    Table column blocks are component-major so post-matmul slices land on
-    lane-width boundaries. Padding triangles carry valid=0 and contribute
+    Table column blocks are component-major so per-component slices are
+    contiguous. Padding triangles carry valid=0 and contribute
     +/-inf-free bounds via masking; an all-padding cluster gets lo > hi,
     which the ranking masks out (its entry key stays +inf).
     """
@@ -104,7 +97,7 @@ def _enter_dists(o, d, lo, hi):
     """Slab entry distance of every ray to every cluster AABB -> [B, C].
 
     +inf on miss or degenerate (lo > hi) cluster. NaN-safe clamp of the
-    direction reciprocal, same convention as ops.intersect_cluster.
+    direction reciprocal.
     """
     def inv(w):
         mag = jnp.maximum(jnp.abs(w), 1e-12)
@@ -235,7 +228,7 @@ def _closest_tri_shortlist_impl(
     table_pad = jnp.concatenate([table, jnp.zeros((1, table.shape[1]))], axis=0)
 
     # Gathered cluster tiles are repacked to 128-wide sweep rows so small
-    # CLUSTER values (tighter culling) keep full VPU lane utilization.
+    # CLUSTER values (tighter culling) keep every sweep tile dense.
     sweep_w = 128 if (kc * cluster) % 128 == 0 else cluster
     n_sweep = kc * cluster // sweep_w
 
@@ -246,9 +239,8 @@ def _closest_tri_shortlist_impl(
         best_t, best_id, visited = st["best_t"], st["best_id"], st["visited"]
         key = improvable_key(jnp.max(best_t, axis=1), visited)
 
-        # K-nearest clusters per block in one fused top-k (the round-3
-        # iterative min extraction was 16 dependent [NB, C] passes and
-        # dominated the round cost; see docs/PERF_NOTES.md round 4).
+        # K-nearest clusters per block in one fused top-k (an iterative
+        # min extraction would be K dependent [NB, C] passes).
         neg, idx = jax.lax.top_k(-key, kc)  # [NB, K]
         picked = jnp.isfinite(neg)
         idx = jnp.where(picked, idx, c)  # -> zero pad row
@@ -256,14 +248,11 @@ def _closest_tri_shortlist_impl(
             idx[:, :, None] == iota_c[None, None, :], axis=1
         )
 
-        # Gather the shortlisted clusters' triangle rows. Per-*block* row
-        # gathers are K/block-th of the per-ray gathers this module was
-        # designed to avoid — at [NB*K] rows they are ~10x cheaper than the
-        # exact one-hot MXU matmul at HIGHEST they replace (measured; the
-        # matmul predated this and survives in git history).
+        # Gather the shortlisted clusters' triangle rows: per-*block* row
+        # gathers, K/block-th of what per-ray gathers would move.
         g = jnp.take(table_pad, idx.reshape(nb * kc), axis=0)
         # Repack component-major: [NB, comps, K*cluster] (cheap — g is a
-        # few MB), then sweep 128-wide slices at full lane width.
+        # few MB), then sweep dense 128-wide slices.
         g = (
             g.reshape(nb, kc, _COMPS, cluster)
             .transpose(0, 2, 1, 3)

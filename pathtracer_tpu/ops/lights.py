@@ -1,6 +1,6 @@
 """Emissive-area-light sampling for next-event estimation.
 
-TPU-native equivalent of ``sample_area_lights``
+Equivalent of ``sample_area_lights``
 (``src/wgsl-util/intersection-logic.wgsl:217-285``). The reference reads up
 to four (start, end) emissive index ranges from its packed-buffer header and
 picks a triangle uniformly *by count*; here the emissive table is a flat
@@ -86,8 +86,9 @@ def sample_area_lights_detailed(scene, x, u_choice, u1, u2,
     them from a full closest-hit on the shadow ray — the occlusion test then
     only needs a t-only sweep (no argmin, no attribute extraction).
 
-    Per-lane attributes come from one one-hot [B, E] @ [E, 15] matmul over
-    the (tiny, padded) emissive table — gathers serialize on TPU.
+    Per-lane attributes come from one exact one-hot [B, E] @ [E, 15]
+    matmul over the (tiny, padded) emissive table; whether a plain gather
+    is faster is ROADMAP S4.
     """
     from pathtracer_tpu.ops.intersect import _onehot_dot
 

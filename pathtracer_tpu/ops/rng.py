@@ -11,19 +11,18 @@ pass regenerate the exact forward samples.
 Two interchangeable generators (``RenderSettings.rng``):
 
 - ``hash`` (default): two rounds of the murmur3 finalizer over the mixed
-  counters. Pure [B]-elementwise u32 ops on the VPU — ~20x cheaper than
-  per-ray threefry and far stronger than the reference's single-round hash.
+  counters. Pure [B]-elementwise u32 ops — far cheaper than per-ray
+  threefry and far stronger than the reference's single-round hash.
 - ``threefry``: JAX's counter-based threefry keys (crypto-strength; the
   validation oracle for the hash generator).
 
-Cost structure (measured on TPU v5e): u32 multiplies are emulated on the
-VPU, so each full two-round hash of a [256k] batch costs ~0.28 ms — at 7+
-draws per bounce that dominated the non-intersection time. Per-bounce
-draws therefore use *one* full-strength base hash of (pixel, sample,
-bounce) and derive each purpose slot with a single xorshift-multiply
-round over ``base ^ slot_salt`` — the base is already avalanched, so one
-nonlinear round decorrelates slots (validated by the uniformity/
-correlation tests and golden-image MSE).
+Cost structure: a full two-round hash is several u32 multiplies per
+element, and a bounce takes 7+ draws. Per-bounce draws therefore use
+*one* full-strength base hash of (pixel, sample, bounce) and derive each
+purpose slot with a single xorshift-multiply round over
+``base ^ slot_salt`` — the base is already avalanched, so one nonlinear
+round decorrelates slots (validated by the uniformity/correlation tests
+and golden-image MSE).
 """
 
 from __future__ import annotations

@@ -10,9 +10,9 @@ next (pixel, sample) ray from a global counter. Utilization stays near 100%
 and wall-clock drops by roughly the ratio of max_depth to mean path length
 (~4x on the headline workload).
 
-This is the classic GPU "path regeneration" wavefront, reshaped for the TPU:
-the pool is a flat SoA batch, regeneration is a masked prefix-sum id
-assignment (no compaction/sorting), and the loop is a ``lax.while_loop``
+This is the classic GPU "path regeneration" wavefront in array form: the
+pool is a flat SoA batch, regeneration is a masked prefix-sum id
+assignment (no compaction), and the loop is a ``lax.while_loop``
 that exits when the ray counter is exhausted and every lane is idle.
 Because all randomness is counter-based on (pixel, sample) (ops.rng), the
 result is identical in distribution — and per-ray identical — to the scan
@@ -40,14 +40,8 @@ from pathtracer_tpu.ops.integrator import bounce_core
 # throttle completions and inflate the iteration count instead.
 _FLUSH_WAYS = 4
 
-# Ray-sort spatial grid resolution per axis (16 -> 12-bit Morton cell;
-# measured best with 128-ray blocks on both boat and refraction, round 5).
-# Env knobs for perf experiments: PT_SORT_GRID (4/8/16 cells per axis),
-# PT_SORT_ORDER ("cell" = cell-major | "octant" = octant-major).
-import os as _os
-
-_SORT_GRID = float(_os.environ.get("PT_SORT_GRID", "16"))
-_SORT_ORDER = _os.environ.get("PT_SORT_ORDER", "cell")
+# Ray-sort spatial grid resolution per axis (16 -> 12-bit Morton cell).
+_SORT_GRID = 16.0
 
 
 def _spread3(x, bits: int = 3):
@@ -84,8 +78,6 @@ def _sort_key(o, d, alive, lo, inv_extent):
         + (d[:, 2] < 0.0).astype(jnp.uint32)
     )
     dead = (~alive).astype(jnp.uint32)
-    if _SORT_ORDER == "octant":
-        return (dead << (3 * bits + 3)) | (octant << (3 * bits)) | morton
     return (dead << (3 * bits + 3)) | (morton << 3) | octant
 
 
@@ -96,10 +88,9 @@ def _sort_pool_state(st, lo, inv_extent):
     global (pixel, sample) carried *with* each lane, the spawn counter is
     global, and the flush scatter goes by pixel id), so any permutation of
     the lane axis yields the same per-path radiance bit-for-bit; only the
-    image's fp accumulation order changes. lax.sort with 15 payload
-    operands costs ~0.15 ms at B=262k on v5e — negligible against the
-    >=10 ms/iteration it saves the block-shortlist intersectors on
-    incoherent bounce waves (docs/PERF_NOTES.md round 5).
+    image's fp accumulation order changes. What the sort costs against
+    what it saves the block-shortlist on incoherent bounce waves is
+    ROADMAP S5.
     """
     key = _sort_key(st["o"], st["d"], st["alive"], lo, inv_extent)
     flags = (
@@ -170,17 +161,16 @@ def resolve_spawn_chunk(settings, n_pixels: int, rays_per_pixel: int) -> int:
     """Concrete samples-per-spawn K for this workload (resolving auto = 0).
 
     Chunked spawning trades flush-scatter rows (divided by K) for
-    work-stealing slack (the global counter balances chunks, not paths).
-    Measured on v5e (cornell 512^2): at spp16 (4 chunks/lane) K=4 LOSES
-    23.6 -> 115/138 Mray/s to the static-assignment tail; at spp1024
-    (256 chunks/lane) K=4 WINS 197 -> 243 Mray/s. Auto draws the line at
-    >= 16 chunks/lane of slack.
+    work-stealing slack (the global counter balances chunks, not paths):
+    with few chunks per lane, the static-assignment tail of K-path chunks
+    costs more than the flush saves. Auto draws the line at >= 16
+    chunks/lane of slack. Whether these thresholds hold on the GPU, where
+    the scatter is atomics, is ROADMAP S3.
 
     Short-path regimes (directLightingOnly, or rr continuation <= 0.5 so
     the mean path dies in < 2 bounces) chunk UNCONDITIONALLY: every lane
     finishes ~every iteration, so the B/4-row flush throttles the whole
-    pool (measured: DLO 0.415 -> 0.131 s, rr=0.1 0.410 -> 0.154 s at
-    spp50) — and near-zero path-length variance removes the
+    pool — and near-zero path-length variance removes the
     static-assignment-tail risk that gates chunking elsewhere.
     """
     if settings.spawn_chunk != 0:
@@ -191,7 +181,7 @@ def resolve_spawn_chunk(settings, n_pixels: int, rays_per_pixel: int) -> int:
     if short_paths or total >= 16 * 4 * batch:
         return 4
     # Middle band: K=2 keeps >= 16 chunks/lane of slack and still halves
-    # the flush (cornell spp50: 187 -> 203 Mray/s; spp16 stays K=1).
+    # the flush (cornell spp50 takes K=2; spp16 stays K=1).
     if total >= 16 * 2 * batch:
         return 2
     return 1
@@ -244,8 +234,8 @@ def render_pool(
     rays_per_pixel are padding holes (never traced). A lane spawn claims a
     whole K-id chunk (one pixel, K consecutive samples), re-aims itself
     in place as each path finishes, and flushes ONE accumulated image row
-    per chunk — the flush scatter is row-count bound (~67 M rows/s), so
-    chunking divides its cost by ~K. ``sample_offset`` shifts the sample
+    per chunk — chunking divides the flush scatter's rows by ~K.
+    ``sample_offset`` shifts the sample
     indices so chunked/resumed renders reproduce the straight-through
     result.
 
@@ -330,17 +320,15 @@ def render_pool(
     )
 
     # Ray sorting: reorder the lane axis by (spatial cell, direction octant)
-    # each iteration so the block-granular shortlist intersectors see
-    # coherent 256-ray blocks even on bounce-scrambled waves. Free for the
-    # sort itself (~0.15 ms/262k); saves the block-union sweep tax
-    # (docs/PERF_NOTES.md round 5). Off for the brute sweep, whose cost is
+    # each iteration so the block-granular shortlist sees coherent 256-ray
+    # blocks even on bounce-scrambled waves, which cuts the clusters each
+    # block's union must sweep. Off for the brute sweep, whose cost is
     # lane-order independent.
     from pathtracer_tpu.ops.intersect import resolve_intersector
 
     sort_rays = settings.ray_sort == "on" or (
         settings.ray_sort == "auto"
-        and resolve_intersector(settings, scene)
-        in ("shortlist", "shortlist_pallas", "cluster")
+        and resolve_intersector(settings, scene) == "shortlist"
     )
     if sort_rays:
         pts = jnp.concatenate(
@@ -395,20 +383,17 @@ def render_pool(
         )
         radiance = jnp.where(died[:, None], 0.0, radiance)
 
-        # Terminated lanes *hold* their finished path until flushed. The
-        # image scatter-add is row-count bound on TPU (~67 M rows/s
-        # measured on v5e, regardless of target size or how many rows are
-        # masked), so flushing all B lanes every iteration costs ~45% of
-        # the loop. Instead each adjacent lane pair flushes at most ONE
-        # held path per iteration — a [B/2]-row scatter. Lanes terminate
-        # at ~0.28/iter, i.e. ~0.56 arrivals per pair-iter < 1 slot, so
-        # the hold queue drains; an unflushed lane just respawns a little
-        # later (measured ~2% extra iterations for a ~2x cheaper flush).
+        # Terminated lanes *hold* their finished path until flushed. Each
+        # group of W lanes flushes at most ONE held path per iteration — a
+        # [B/W]-row image scatter instead of [B] rows, whose cost grows
+        # with the row count. Lanes terminate at ~0.2/iter, below the
+        # group's 1/W slot, so the hold queue drains; an unflushed lane
+        # just respawns a little later. Whether this pays on the GPU's
+        # atomic scatter is ROADMAP S3.
         holding = st["holding"] | finished
-        # Group lane i with lanes i + k*B/W (W-way): strided half/quarter
-        # slices keep the TPU lane layout intact (a [B] -> [B/W, W] reshape
-        # would relayout the 128-wide lane axis and cost more than the
-        # scatter saves). The first holding lane of each group flushes.
+        # Group lane i with lanes i + k*B/W (W-way) via contiguous strided
+        # slices (no [B] -> [B/W, W] relayout). The first holding lane of
+        # each group flushes.
         group = b // _FLUSH_WAYS
         rad = acc  # per-path clamp already applied at fold time (above)
         taken = jnp.zeros((group,), bool)

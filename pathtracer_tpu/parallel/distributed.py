@@ -1,13 +1,12 @@
 """Multi-host execution (SURVEY.md §2.4, §7 step 8).
 
-The reference is single-browser/single-GPU; the TPU-native scaling story is
+The reference is single-browser/single-GPU; the scaling story here is
 ``jax.distributed``: N processes (one per host) initialize against a
 coordinator, after which ``jax.devices()`` is the *global* device set and
 every collective compiled by XLA (the ``psum`` in
 ``parallel.render._pool_sharded`` and in ``inverse.make_train_step``)
-crosses process boundaries — over ICI within a slice, DCN across slices,
-and Gloo/TCP on CPU (which is how the N-process localhost test runs
-without a pod; tests/test_multihost.py).
+crosses process boundaries — NCCL between GPUs, Gloo/TCP on CPU (which is
+how the N-process localhost test runs; tests/test_multihost.py).
 
 Environment variables (all optional — flags win over env):
 
@@ -15,8 +14,8 @@ Environment variables (all optional — flags win over env):
 - ``PT_TPU_NUM_PROCESSES`` total process count
 - ``PT_TPU_PROCESS_ID``    this process's rank
 
-On TPU pods with standard orchestration (GKE/ray), calling
-``initialize()`` with no arguments lets JAX auto-detect everything.
+Nothing is auto-detected: a multi-process run names its coordinator
+(``localhost:<port>`` on one host), process count and rank.
 """
 
 from __future__ import annotations
@@ -46,8 +45,7 @@ def initialize(
         process_id = int(os.environ["PT_TPU_PROCESS_ID"])
 
     if coordinator_address is None and num_processes is None:
-        # Single-process run (or TPU-pod auto-detection if the platform
-        # provides it — jax.distributed.initialize() no-args).
+        # Single-process run.
         return
 
     jax.distributed.initialize(

@@ -1,10 +1,12 @@
 """Device mesh construction and sharding specs.
 
 The reference has no distributed tier (single WebGPU device, SURVEY.md §2.4).
-This module supplies the TPU-native scaling story: a 1-D ``rays`` mesh axis
-over all devices. Rays (pixels x samples) shard across it; the scene/BVH
-replicates; images and scene-parameter gradients reduce with ``psum`` over
-ICI. Multi-host extends the same mesh via ``jax.distributed``.
+This module supplies the scaling story: a 1-D ``rays`` mesh axis over all
+devices. Rays (pixels x samples) shard across it; the scene/BVH
+replicates; images and scene-parameter gradients reduce with ``psum``.
+The axis follows the algorithm alone: every card of a host reaches every
+other at the same rate, so no shape is taken from the interconnect.
+Multi-host extends the same mesh via ``jax.distributed``.
 """
 
 from __future__ import annotations

@@ -109,7 +109,7 @@ def render_pool_sharded(
     -> mean radiance [H, W, 3].
 
     Each device runs its own regeneration pool over a disjoint slice of the
-    global sample-major ray-id space; partial images ``psum`` over ICI.
+    global pixel-major ray-id space; partial images ``psum`` over the mesh.
     Counter-based RNG makes every *path's* radiance bit-identical to the
     single-device pool; only the float summation order per pixel differs
     (tested to ~1e-6 relative). This is the multi-chip version of the

@@ -1,6 +1,6 @@
 """High-level rendering API.
 
-TPU-native replacement for the reference's render loop
+Replacement for the reference's render loop
 (``src/program-raymarch.ts:226-336``): where the reference dispatches one
 1-spp frame per ``requestAnimationFrame`` and averages on the CPU, this jits
 one sample-wave over the full pixel batch and accumulates on device.

@@ -1,6 +1,6 @@
 """Host-side (NumPy) linear algebra for scene-graph construction.
 
-TPU-native equivalent of the reference's host math layer
+Equivalent of the reference's host math layer
 (``src/ts-util/math.ts`` and the ``@toysinbox3dprinting/js-geometry`` mat4
 helpers used by ``src/index.ts:49-113``). Everything here runs once at scene
 load time on the CPU; device-side math lives in ``pathtracer_tpu.ops``.

@@ -15,9 +15,10 @@ swap safe); renders never block on the server.
 from __future__ import annotations
 
 import http.server
-import io
 import json
 import threading
+
+from pathtracer_tpu.utils.image import encode_png
 
 _PAGE = """<!doctype html>
 <html><head><title>pathtracer_tpu live preview</title><style>
@@ -102,12 +103,9 @@ class PreviewServer:
     def update(self, image_u8, spp_done: int, spp_total: int,
                done: bool = False) -> None:
         """Publish a new partial render (uint8 [H, W, 3] array)."""
-        from PIL import Image
-
-        buf = io.BytesIO()
-        Image.fromarray(image_u8).save(buf, format="PNG")
+        png = encode_png(image_u8)
         with self._lock:
-            self._png = buf.getvalue()
+            self._png = png
             self._status = {
                 "spp_done": int(spp_done),
                 "spp_total": int(spp_total),

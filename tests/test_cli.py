@@ -1,4 +1,4 @@
-"""CLI smoke tests (VERDICT r1 weak #4): INI in, PNG out."""
+"""CLI smoke tests: INI in, PNG out."""
 
 import os
 
@@ -49,8 +49,7 @@ def test_cli_sharded_scan(reference_root, tmp_path):
 @pytest.mark.parametrize("scheduler", ["regen", "scan"])
 def test_cli_preview_png(reference_root, tmp_path, scheduler):
     """--preview-png N writes tonemapped partials every N samples and the
-    final image equals a non-preview render (VERDICT r3 missing #1; the
-    reference displays every accumulated frame, program-raymarch.ts:277-318).
+    final image equals a non-preview render.
     """
     ini = str(reference_root / "scene_files/final/cornell_box_full_lighting.ini")
     out_p = str(tmp_path / "prev.png")

@@ -1,4 +1,4 @@
-"""Estimator-option tests (VERDICT r3 weak #6, #7).
+"""Estimator-option tests.
 
 Covers the two previously-untested settings:
 
@@ -233,7 +233,7 @@ def test_area_mode_consistency():
 
 
 def test_rr_low_probability_self_consistency():
-    """rr=0.1 estimator oracle (VERDICT r4 task 8): the Russian-roulette
+    """rr=0.1 estimator oracle: the Russian-roulette
     compensation path (program-raymarch.wgsl:190-193,233,249,297) must be
     *unbiased* — at high spp the rr=0.1 render converges to the rr=0.9
     render of the same scene. The low-probability golden image is itself

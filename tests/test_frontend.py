@@ -210,3 +210,16 @@ class TestCamera:
         cam = Camera(pos=(3, 3, -3), up=(0, 1, 0), focus=(0, 2, 0), height_angle_deg=80)
         m = cam.cam_to_world() @ cam.world_to_cam()
         np.testing.assert_allclose(m, np.eye(4), atol=1e-12)
+
+
+def test_png_roundtrip_without_pil_writer(tmp_path, rng_np):
+    """write_png (zlib only) produces a PNG that a standard decoder reads
+    back exactly."""
+    from pathtracer_tpu.utils.image import read_png, write_png
+
+    img = rng_np.integers(0, 256, (7, 5, 3)).astype(np.uint8)
+    path = str(tmp_path / "rt.png")
+    write_png(path, img)
+    np.testing.assert_array_equal(
+        np.round(read_png(path) * 255.0).astype(np.uint8), img
+    )

@@ -76,20 +76,6 @@ class TestIntersect:
         assert (tid[hit] < scene.num_tris).all()
         assert (t[hit] > 0).all()
 
-    def test_pallas_interpret_matches_brute(self, box, rng_np):
-        from pathtracer_tpu.ops.intersect_pallas import closest_tri_pallas
-
-        scene, _ = box
-        n = 512
-        o = jnp.asarray(rng_np.uniform(-0.9, 0.9, (n, 3)) * [1, 0, 1] + [0, 1, 0])
-        d = jnp.asarray(rng_np.normal(size=(n, 3)))
-        d = d / jnp.linalg.norm(d, axis=-1, keepdims=True)
-        t_ref, _ = closest_tri_brute(scene, o, d)
-        t_pal, _ = closest_tri_pallas(scene, o, d, interpret=True)
-        np.testing.assert_allclose(
-            np.asarray(t_ref), np.asarray(t_pal), rtol=1e-5, atol=1e-6
-        )
-
     def test_analytic_sphere_closed_form(self):
         from pathtracer_tpu.models.obj import ObjMaterial
         from pathtracer_tpu.models.pack import pack_scene

@@ -1,4 +1,4 @@
-"""Inverse rendering closes the loop (BASELINE.json config 5, VERDICT r1 #5).
+"""Inverse rendering closes the loop (BASELINE.json config 5).
 
 Perturb the procedural Cornell box's materials, render a target with the
 true materials, and verify gradient descent actually recovers them — not

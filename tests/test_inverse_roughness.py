@@ -1,4 +1,4 @@
-"""Roughness (Phong exponent Ns) gradients and recovery (VERDICT r3 #4).
+"""Roughness (Phong exponent Ns) gradients and recovery.
 
 The reference's glossy lobe is ``Ks (Ns+2)/(2pi) cos^Ns(alpha)``
 (program-raymarch.wgsl:262-278); its exponent is a scene parameter the
@@ -97,7 +97,7 @@ def test_ns_grad_flows_through_nee_and_bounce(glossy_box):
 
 def test_recover_kd_and_ns_jointly(glossy_box):
     """Perturbed-Ns glossy Cornell recovers Ns to < 5% relative error,
-    jointly with albedo (VERDICT r3 next-round item 4).
+    jointly with albedo.
 
     The fit uses a FIXED sample set shared with the target (a deterministic
     loss whose exact argmin is the true parameters) — the standard

@@ -4,7 +4,7 @@ BASELINE.json config 4 names MedievalBoat.xml as the large-scene stressor
 (reference: scene_assets/MedievalBoat.xml, 15216 v / 12571 f). Covers an
 end-to-end tiny render (parse -> BVH pack -> wavefront integrate, finite
 and non-trivial) and exact cross-intersector agreement on boat rays
-(brute sweep vs BVH traversal vs cluster kernel).
+(brute sweep vs BVH traversal vs block-shortlist).
 """
 
 import numpy as np
@@ -44,12 +44,11 @@ def test_boat_renders(boat):
 
 
 def test_boat_intersectors_agree(boat, rng_np):
-    """brute / bvh / cluster closest-hit agree exactly on boat rays."""
+    """brute / bvh closest-hit agree on boat rays."""
     import jax.numpy as jnp
 
     from pathtracer_tpu.ops.bvh_traverse import closest_tri_bvh
     from pathtracer_tpu.ops.intersect import closest_tri_brute
-    from pathtracer_tpu.ops.intersect_cluster import closest_tri_cluster
 
     scene, camera = boat
     o = jnp.asarray(
@@ -61,13 +60,11 @@ def test_boat_intersectors_agree(boat, rng_np):
 
     t0, id0 = (np.asarray(a) for a in closest_tri_brute(scene, o, d))
     t1, id1 = (np.asarray(a) for a in closest_tri_bvh(scene, o, d))
-    t2, id2 = (np.asarray(a) for a in closest_tri_cluster(scene, o, d, interpret=True))
     hit = np.isfinite(t0)
     assert hit.any(), "no boat hits sampled"
-    for t, ids in ((t1, id1), (t2, id2)):
-        assert np.array_equal(hit, np.isfinite(t))
-        assert np.allclose(t0[hit], t[hit], rtol=1e-5, atol=1e-6)
-        assert np.array_equal(id0[hit], ids[hit])
+    assert np.array_equal(hit, np.isfinite(t1))
+    assert np.allclose(t0[hit], t1[hit], rtol=1e-5, atol=1e-6)
+    assert np.array_equal(id0[hit], id1[hit])
 
 
 def test_boat_shortlist_agrees_exactly(boat, rng_np):
@@ -171,47 +168,3 @@ def test_boat_two_stage_extraction(boat, rng_np):
             np.testing.assert_allclose(
                 np.linalg.norm(ns, axis=1), 1.0, rtol=1e-5
             )
-
-
-def test_boat_pallas_shortlist_agrees_exactly(boat, rng_np):
-    """Fused Pallas shortlist kernel == brute bit-for-bit (interpret mode).
-
-    ops.intersect_shortlist_pallas fuses the shortlist loop (per-block
-    rounds, VMEM-resident cluster table + entry matrix); same exactness
-    contract as the XLA shortlist. Covers closest-hit and the t_init
-    occlusion path on mixed boat rays.
-    """
-    import jax.numpy as jnp
-
-    from pathtracer_tpu.ops.intersect import closest_tri_brute
-    from pathtracer_tpu.ops.intersect_shortlist_pallas import (
-        closest_tri_shortlist_pallas,
-        occluded_tri_shortlist_pallas,
-    )
-
-    scene, camera = boat
-    b = 700  # deliberately not a block multiple (exercises ray padding)
-    o = np.broadcast_to(np.asarray(camera.pos, np.float32), (b, 3)).copy()
-    o += rng_np.normal(size=(b, 3)).astype(np.float32) * 0.4
-    d = rng_np.normal(size=(b, 3))
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    o, d = jnp.asarray(o), jnp.asarray(d.astype(np.float32))
-
-    t0, id0 = (np.asarray(a) for a in closest_tri_brute(scene, o, d))
-    hit = np.isfinite(t0)
-    assert hit.any()
-    for block, cluster in ((256, 128), (512, 128)):
-        t1, id1 = (
-            np.asarray(a)
-            for a in closest_tri_shortlist_pallas(
-                scene, o, d, block=block, cluster=cluster, interpret=True
-            )
-        )
-        assert np.array_equal(t0, t1), (block, cluster)
-        assert np.array_equal(id0[hit], id1[hit]), (block, cluster)
-
-    t_cut = jnp.asarray(rng_np.uniform(0.5, 30.0, size=b).astype(np.float32))
-    got = np.asarray(
-        occluded_tri_shortlist_pallas(scene, o, d, t_cut, interpret=True)
-    )
-    assert np.array_equal(np.asarray(jnp.asarray(t0) < t_cut), got)

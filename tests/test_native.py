@@ -1,21 +1,69 @@
 """Native (C++) component parity: builders/parsers must match their Python
 fallbacks exactly (the fallbacks are the spec)."""
 
+import os
+
 import numpy as np
 import pytest
 
+from pathtracer_tpu import native
 from pathtracer_tpu.native import get_lib
 
 
-def _native_available():
-    return get_lib() is not None
+@pytest.fixture()
+def native_lib():
+    lib = get_lib()
+    if lib is None:
+        pytest.skip("native library unavailable")
+    return lib
 
 
-pytestmark = pytest.mark.skipif(
-    not _native_available(), reason="native library unavailable"
-)
+class TestBuildKey:
+    def test_library_lives_under_its_key(self):
+        key = native.build_key()
+        assert native.build_key() == key  # stable
+        path = native.lib_path()
+        assert path == os.path.join(native._BUILD_ROOT, key, "libptnative.so")
+
+    def test_key_follows_sources_and_host(self, monkeypatch, tmp_path):
+        key = native.build_key()
+        for name in native._SOURCES:
+            (tmp_path / name).write_bytes(
+                open(os.path.join(native._DIR, name), "rb").read()
+            )
+        monkeypatch.setattr(native, "_DIR", str(tmp_path))
+        assert native.build_key() == key
+        with open(tmp_path / native._SOURCES[0], "a") as f:
+            f.write("\n// edited\n")
+        edited = native.build_key()
+        assert edited != key
+        monkeypatch.setattr(native.platform, "machine", lambda: "other-arch")
+        assert native.build_key() not in (key, edited)
+
+    def test_loads_only_its_own_build(self, monkeypatch, tmp_path):
+        """A library left next to the sources (the old location) or under
+        another key is ignored; get_lib builds and loads its own."""
+        for name in native._SOURCES:
+            (tmp_path / name).write_bytes(
+                open(os.path.join(native._DIR, name), "rb").read()
+            )
+        (tmp_path / "_libptnative.so").write_bytes(b"not a library")
+        stray = tmp_path / "_build" / "0123456789abcdef"
+        stray.mkdir(parents=True)
+        (stray / "libptnative.so").write_bytes(b"not a library")
+        monkeypatch.setattr(native, "_DIR", str(tmp_path))
+        monkeypatch.setattr(native, "_BUILD_ROOT", str(tmp_path / "_build"))
+        monkeypatch.setattr(native, "_lib", None)
+        monkeypatch.setattr(native, "_tried", False)
+        monkeypatch.delenv("PT_TPU_NO_NATIVE", raising=False)
+        lib = native.get_lib()
+        if lib is None:
+            pytest.skip("no C++ toolchain")
+        assert lib._name == native.lib_path()
+        assert native.lib_path().startswith(str(tmp_path / "_build"))
 
 
+@pytest.mark.usefixtures("native_lib")
 class TestNativeBvh:
     def test_matches_python_invariants(self, rng_np):
         from pathtracer_tpu.models.bvh import build_bvh_native, bvh_depth
@@ -83,6 +131,7 @@ class TestNativeBvh:
         assert bvh.leaf_count[0, 1] == 0
 
 
+@pytest.mark.usefixtures("native_lib")
 class TestNativeObj:
     def test_matches_python_on_reference_meshes(self, reference_root):
         from pathtracer_tpu.models.obj import parse_obj

@@ -58,7 +58,7 @@ def test_pool_sharded_matches_single(box):
 
 @pytest.mark.parametrize("n_dev", [3, 5, 7])
 def test_pool_sharded_odd_device_counts(box, n_dev):
-    """Non-power-of-two meshes (VERDICT r4 task 6): both the per-device id
+    """Non-power-of-two meshes: both the per-device id
     slicing (ceil division + ragged tail) and the psum reduce must be
     correct when the device count does not divide the ray-id space."""
     from pathtracer_tpu.parallel.mesh import make_mesh
@@ -116,7 +116,7 @@ def test_pool_sharded_ragged_id_space(box):
 
 
 def test_sharded_render_pads_non_divisible(box):
-    """500x500-style non-divisible pixel counts render (VERDICT r1 weak #3)."""
+    """500x500-style non-divisible pixel counts render."""
     from pathtracer_tpu.parallel.mesh import make_mesh
     from pathtracer_tpu.parallel.render import render_sharded
     from pathtracer_tpu.render import render
@@ -170,7 +170,7 @@ def test_sharded_train_step_runs_and_reduces(box):
 
 def test_sharded_display_space_step_matches_unsharded(box):
     """Display-space training (loss in tonemapped [0, 1] space) under the
-    mesh: previously only exercised unsharded (VERDICT r4 task 6). The
+    mesh: previously only exercised unsharded. The
     psum'd gradient must match the single-device gradient — the tonemap is
     per-pixel, so sharding the pixel axis commutes with it."""
     import optax
@@ -321,8 +321,8 @@ def test_pool_sharded_spawn_chunk(box):
 
 
 def test_resolve_spawn_chunk_auto_rule():
-    """Auto chunking engages only with >= 16 chunks/lane of stealing slack
-    (measured crossover, docs/PERF_NOTES.md round 5)."""
+    """Auto chunking engages only with >= 16 chunks/lane of stealing
+    slack."""
     from pathtracer_tpu.ops.wavefront import (
         pool_ids_total,
         resolve_spawn_chunk,

@@ -1,6 +1,6 @@
 """End-to-end coverage of every shipped reference scene.
 
-VERDICT r1 #6: the milestone configs, CornellBox2 (the two-primitive scene
+The milestone configs, CornellBox2 (the two-primitive scene
 that the reference's ``.slice(0, 1)`` bug silently truncates,
 src/index.ts:116), ColoredBox, and an analytic-primitive XML scene must all
 be exercised by render tests, not just parse tests. Pairing contract:

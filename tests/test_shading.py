@@ -1,4 +1,4 @@
-"""Vertex-normal smooth shading (VERDICT r1 #4).
+"""Vertex-normal smooth shading.
 
 The reference parses vertex normals but abandons interpolation
 (parse-obj.ts:41-55; intersection-logic.wgsl:81-108 commented out). Here
